@@ -18,7 +18,9 @@ import sys
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
+from .utils.compile_cache import configure_compile_cache
+
+configure_compile_cache()
 
 
 def _cmd_run(args):

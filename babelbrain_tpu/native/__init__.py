@@ -1,8 +1,8 @@
 """Native (C++) runtime components, loaded via ctypes.
 
 The reference ships its voxel-processing hot ops as native kernels compiled
-for four GPU APIs (`GPUFunctions/GPUUtils.py:85-474`). In the TPU build,
-device compute goes through XLA/Pallas; host-side irregular work (solid
+for four GPU APIs (`GPUFunctions/GPUUtils.py:85-474`). Here device
+compute goes through XLA; host-side irregular work (solid
 voxelization, SURVEY.md section 2.3) lives here as OpenMP C++.
 
 Libraries are compiled on first use with g++ into the package directory and

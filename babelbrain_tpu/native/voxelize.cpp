@@ -1,10 +1,10 @@
 // Native solid voxelizer: parity ray-cast with an XOR bit table.
 //
-// TPU-native-framework counterpart of the reference's 4-backend GPU
+// Host-side counterpart of the reference's 4-backend GPU
 // voxelizer (`GPUFunctions/GPUVoxelize/voxelize.cpp:17-38,121` — per-triangle
 // scan of the yz plane + atomic XOR into a bit table, then prefix pass).
 // Voxelization is host-side setup work (SURVEY.md section 2.3 flags it as
-// the one irregular op that does not map onto the MXU/VPU), so the native
+// the one irregular op that does not map onto dense array math), so the native
 // runtime owns it: OpenMP over triangles, std::atomic XOR into a packed
 // x-bit table, prefix-XOR scan per (y,z) column.
 //

@@ -1,4 +1,4 @@
-"""Pennes bio-heat (BHTE) solver with CEM43 dose (JAX/TPU).
+"""Pennes bio-heat (BHTE) solver with CEM43 dose (JAX).
 
 Re-implements the thermal solver contract of BabelViscoFDTD's
 ``BHTE``/``BHTEMultiplePressureFields`` as reconstructed from call sites
@@ -56,9 +56,7 @@ class BHTEResult:
     peak_temperature: np.ndarray  # max T over schedule
     dose: np.ndarray  # CEM43 in seconds
     monitor: np.ndarray  # (n_points, n_samples) temperatures
-    # global step index of each monitor sample (the reference's
-    # nFactorMonitoring cadence; the XLA path samples every step, the
-    # fused Pallas path once per K-step sweep)
+    # global step index of each monitor sample (every step)
     monitor_steps: np.ndarray | None = None
 
 
@@ -157,7 +155,6 @@ def bhte_run(
     initial_dose=None,
     arterial_temperature: float | None = None,
     dose_dt_scale: float = 1.0,
-    backend: str = "auto",
 ) -> BHTEResult:
     """Run a BHTE schedule.
 
@@ -170,10 +167,6 @@ def bhte_run(
         order; ``field_index < 0`` or ``on=False`` means no heating.
     duty_cycle : scales Q during 'on' phases (single-field path).
     monitor_points : (K, 3) integer voxel indices to record.
-    backend : 'auto' | 'xla' | 'pallas'. The Pallas path runs K fused
-        timesteps per streaming sweep (``ops.bhte_pallas``), sampling
-        monitors once per sweep (the reference's own monitoring cadence is
-        ``nFactorMonitoring`` steps); 'auto' picks it on TPU.
 
     Returns BHTEResult; dose is CEM43 in seconds; ``monitor_steps`` gives
     the global step index of each monitor sample.
@@ -221,55 +214,6 @@ def bhte_run(
         if arterial_temperature is not None
         else np.asarray(mats.init_temperature).max()
     )
-
-    if backend == "auto":
-        plat = jax.devices()[0].platform
-        backend = "pallas" if plat == "tpu" else "xla"
-    if backend == "pallas":
-        from .bhte_pallas import bhte_segment_pallas
-
-        km = coeff["k"]
-        inv_dx2 = coeff["inv_dx2"]
-        c6 = [
-            _harmonic_mean(km, _shift(km, 1, 0)) * inv_dx2,
-            _harmonic_mean(km, _shift(km, -1, 0)) * inv_dx2,
-            _harmonic_mean(km, _shift(km, 1, 1)) * inv_dx2,
-            _harmonic_mean(km, _shift(km, -1, 1)) * inv_dx2,
-            _harmonic_mean(km, _shift(km, 1, 2)) * inv_dx2,
-            _harmonic_mean(km, _shift(km, -1, 2)) * inv_dx2,
-            coeff["inv_rho_cp_dt"],
-            coeff["perf_dt"],
-        ]
-        interpret = jax.devices()[0].platform == "cpu"
-        Qj = jnp.asarray(Q)
-        T = T0
-        dose = dose0
-        peak = jnp.full_like(T0, -1e9)
-        all_mons = []
-        all_steps = []
-        step0 = 0
-        for f_idx, n_steps, on_flag in schedule:
-            n_steps = int(n_steps)
-            if n_steps <= 0:
-                continue
-            q_seg = None
-            if on_flag and f_idx >= 0:
-                q_seg = Qj[int(f_idx)]
-            T, dose, peak, mons, msteps = bhte_segment_pallas(
-                T, dose, peak, q_seg, c6, n_steps, t_art,
-                jnp.asarray(flat_idx), interpret=interpret,
-            )
-            all_mons.append(np.asarray(mons))
-            all_steps.append(msteps + step0)
-            step0 += n_steps
-        mons_np = np.concatenate(all_mons, axis=0)
-        return BHTEResult(
-            temperature=np.asarray(T),
-            peak_temperature=np.asarray(peak),
-            dose=np.asarray(dose) * dt * dose_dt_scale,
-            monitor=mons_np.T,
-            monitor_steps=np.concatenate(all_steps),
-        )
 
     # CEM43 accumulation: dose += dt * R^(43-T); fold dt into post-scaling
     T, dose, peak, mons = _bhte_scan(

@@ -1,6 +1,6 @@
-"""Staggered-grid viscoelastic FDTD for transcranial ultrasound (JAX/TPU).
+"""Staggered-grid viscoelastic FDTD for transcranial ultrasound (JAX).
 
-Re-implements, TPU-natively, the solver contract of BabelViscoFDTD's
+Re-implements the solver contract of BabelViscoFDTD's
 ``StaggeredFDTD_3D_with_relaxation`` as reconstructed in SURVEY.md section
 2.9 (call sites `TranscranialModeling/BabelIntegrationBASE.py:2338-2429`):
 isotropic velocity-stress formulation on a Virieux staggered grid with
@@ -8,12 +8,12 @@ isotropic velocity-stress formulation on a Virieux staggered grid with
 attenuation, CPML absorbing boundaries, CW plane sources with per-pixel
 amplitude+phase, and carrier-frequency field extraction.
 
-TPU-first design decisions (vs the reference's CUDA/OpenCL/Metal kernels):
+Design decisions (vs the reference's CUDA/OpenCL/Metal kernels):
 
 * The whole time loop is one ``lax.scan`` under ``jit`` — XLA fuses each
-  step's stencils into a handful of HBM-bandwidth-bound loops.
-* Carrier-frequency amplitude/phase maps are accumulated **in-kernel** as a
-  running DFT over the final cycles instead of storing a giant sensor
+  step's stencils into a handful of memory-bandwidth-bound loops.
+* Carrier-frequency amplitude/phase maps are accumulated **in the scan** as
+  a running DFT over the final cycles instead of storing a giant sensor
   time-series and FFT-ing afterwards (the reference's memory-bound design,
   `BabelIntegrationBASE.py:2460-2538`). For steady-state CW this is exact.
 * Attenuation: one standard-linear-solid (SLS) relaxation mechanism per
@@ -25,28 +25,18 @@ TPU-first design decisions (vs the reference's CUDA/OpenCL/Metal kernels):
   shared stress-relaxation time per material.
 * CPML (Roden & Gedney) with slab-only psi memory arrays: psi exists only in
   the boundary slabs of the axis its derivative runs along, so PML overhead
-  on HBM traffic is O(npml/N).
-* No complex dtypes on device (some TPU runtimes cannot transfer them);
-  field extraction returns cos/sin accumulator pairs.
+  on memory traffic is O(npml/N).
+* Field extraction returns cos/sin accumulator pairs; amplitude and phase
+  are formed on the host.
 
 Material handling: per-voxel ``uint32`` index + per-material coefficient
-table expanded (host-side) into full-grid property fields for the XLA path.
-The viscoelastic Pallas fusedK kernels instead stream ONE int32 index
-volume and keep the coefficient table resident in VMEM (single-vreg lane
-``dynamic_gather`` per stage — bit-exact, +10% at the headline shape) when
-the material count fits the gather window (min(128, N3) lanes, always true
-for label mode) and the window tiling is efficient
-(``_build_indexed_materials``). The fluid CT kernels keep the expanded
-fields: Mosaic's gather is single-vreg-only, so a 1026-entry CT table
-needs a 9-chunk select tree whose VPU cost exceeds the stream savings —
-the material streams measure ~0% of sweep time (``tools/probe_roofline.py``
-matcost probe; the kernels are not HBM-bound).
+table expanded (host-side) into full-grid property fields.
 """
 
 from __future__ import annotations
 
 import functools
-import dataclasses
+import time
 from dataclasses import dataclass
 
 import jax
@@ -176,23 +166,6 @@ class _CPML:
         new_hi = self.b_hi * psi_hi + feed_hi
         D = D.at[idx_hi].set(d_hi + new_hi)
         return D, (new_lo, new_hi)
-
-
-def _build_cpml_profiles_np(shape, npml, dx, dt, cmax, reflection_limit):
-    """Like _build_cpml_profiles but with numpy leaves (for pallas closures)."""
-    out = []
-    ns = npml + 2
-    for axis, n in enumerate(shape):
-        prof = cpml_profiles(n, npml, dx, dt, cmax, reflection_limit)
-        entry = {}
-        for stag in ("int", "half"):
-            b = prof[f"b_{stag}"]
-            a = prof[f"a_{stag}"]
-            entry[stag] = {
-                "b_lo": b[:ns], "a_lo": a[:ns], "b_hi": b[-ns:], "a_hi": a[-ns:],
-            }
-        out.append(entry)
-    return out
 
 
 def _build_cpml_profiles(shape, npml, dx, dt, cmax, reflection_limit):
@@ -333,10 +306,11 @@ def _material_fields(mat_idx, coefs, has_shear=True):
 
 _JIT_CACHE: dict = {}
 _JIT_STATS = {"builds": 0, "hits": 0}
+_RUN_LOG: list = []
 
 
 def fdtd_executable_stats(reset: bool = False) -> dict:
-    """In-process jitted-executable reuse counters for ``run_fdtd``.
+    """In-process compiled-executable reuse counters for ``run_fdtd``.
 
     ``builds`` counts fresh traces/compiles; ``hits`` counts calls served
     by an already-built executable. The reference's case loop is
@@ -351,85 +325,59 @@ def fdtd_executable_stats(reset: bool = False) -> dict:
     return out
 
 
-def _cached_executable(key, make):
-    """Memoize jitted callables across run_fdtd calls.
+def fdtd_run_log(reset: bool = False) -> list:
+    """One record per ``run_fdtd``/``run_fdtd_batch`` call in this process.
 
-    The key must capture everything baked into the trace as constants
-    (grid, cmax-derived CPML profiles, viscosity, oz_scale, backend
-    variant, fused-depth overrides); all field/material data flows in as
-    traced arguments. Callers skip the cache when closures would capture
-    per-case arrays (monitor indices)."""
-    fn = _JIT_CACHE.get(key)
-    if fn is None:
-        _JIT_STATS["builds"] += 1
-        fn = make()
-        _JIT_CACHE[key] = fn
-    else:
-        _JIT_STATS["hits"] += 1
-    return fn
+    Each is a dict: ``shape`` (grid), ``n_steps``, ``cases`` (batch size),
+    ``shear`` (viscoelastic update), ``platform``, ``compile_s`` (0 when
+    the executable was reused) and ``run_s``, the execution time from
+    dispatch to ``block_until_ready``. Cell updates per second are
+    ``cases * prod(shape) * n_steps / run_s``."""
+    out = list(_RUN_LOG)
+    if reset:
+        _RUN_LOG.clear()
+    return out
 
 
-def _pallas_with_vmem_fallback(call, max_shrink=3):
-    """Run ``call(k_shrink)``, retrying with progressively shallower fused
-    depths when the TPU compile fails on the VMEM budget.
+def _compiled_executable(key, make, args):
+    """Ahead-of-time compile ``make()`` for ``args``; returns
+    ``(executable, compile_seconds)``.
 
-    The auto-K VMEM models (``_fusedK_auto``/``_viscoK_auto``) are fitted
-    to today's kernel layouts; if a layout change invalidates them the
-    failure mode is a Mosaic out-of-VMEM error at compile time on the real
-    chip only.  This compile-probe fallback turns that into a graceful
-    K decrement instead of a production failure.
-    """
-    from .fdtd_pallas import is_vmem_oom
+    With a ``key``, executables are memoized across calls. The key must
+    capture everything baked into the trace as constants (grid,
+    cmax-derived CPML profiles, viscosity, oz_scale, source and output
+    variant); all field/material data flows in as traced arguments, and the
+    devices the arguments live on are added to the key here. ``key=None``
+    compiles afresh (closures that capture per-case arrays such as monitor
+    indices)."""
+    if key is not None:
+        leaf = jax.tree_util.tree_leaves(args)[0]
+        key = key + (leaf.sharding,)
+        exe = _JIT_CACHE.get(key)
+        if exe is not None:
+            _JIT_STATS["hits"] += 1
+            return exe, 0.0
+    _JIT_STATS["builds"] += 1
+    t0 = time.perf_counter()
+    exe = make().lower(*args).compile()
+    compile_s = time.perf_counter() - t0
+    if key is not None:
+        _JIT_CACHE[key] = exe
+    return exe, compile_s
 
-    for shrink in range(max_shrink + 1):
-        try:
-            return call(shrink)
-        except Exception as e:  # noqa: BLE001 - classify then re-raise
-            if shrink < max_shrink and is_vmem_oom(e):
-                continue
-            raise
 
-
-def _build_indexed_materials(coefs, mat_idx, reflector_mask, n3):
-    """Indexed-material inputs for the visco fusedK Pallas kernels.
-
-    Returns ``(idx_i32 (N1,N2,N3), table (8,128) f32)`` with table rows
-    [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r], or ``None`` when the material
-    count does not fit the single-vreg gather window (min(128, N3) lanes,
-    minus the zero pad row the sharded driver uses as the dead material).
-    Reflector (air-cavity) voxels get twin materials with zeroed moduli —
-    the same fold ``_fold_reflector`` applies to expanded volumes, kept
-    per-material so the kernel's table gather stays exact.
-    """
-    keys = ("rho_inv", "pi_u", "mu_u", "c_rp", "c_rs", "b_r")
-    M = len(np.asarray(coefs["pi_u"]))
-    cap = min(128, int(n3)) - 1
-    # the in-kernel gather runs on 128-lane windows over the z axis; when
-    # the windows overlap heavily the redundant gather work outweighs the
-    # stream savings (measured on v5e: +10% at N3=240 [7% overlap] but
-    # -19% at N3=192 [33% overlap]) -> only use indexed mode when the
-    # window tiling is efficient
-    n3i = int(n3)
-    if n3i > 128:
-        starts = list(range(0, n3i - 127, 128))
-        if starts[-1] + 128 < n3i:
-            starts.append(n3i - 128)
-        if len(starts) * 128 > 1.15 * n3i:
-            return None
-    idx = np.asarray(mat_idx).astype(np.int32)
-    has_refl = reflector_mask is not None and np.asarray(reflector_mask).any()
-    n_rows = 2 * M if has_refl else M
-    if n_rows > cap:
-        return None
-    tab = np.zeros((8, 128), np.float32)
-    for r, k in enumerate(keys):
-        v = np.asarray(coefs[k], np.float32)
-        tab[r, :M] = v
-        if has_refl:
-            tab[r, M:2 * M] = v if k in ("rho_inv", "b_r") else 0.0
-    if has_refl:
-        idx = np.where(np.asarray(reflector_mask, bool), idx + M, idx)
-    return idx.astype(np.int32), tab
+def _run_logged(exe, args, compile_s, grid, has_shear, cases=1):
+    """Execute, wait for the device, and append the call to the run log."""
+    t0 = time.perf_counter()
+    out = jax.block_until_ready(exe(*args))
+    leaf = jax.tree_util.tree_leaves(args)[0]
+    _RUN_LOG.append(dict(
+        shape=tuple(grid.shape), n_steps=int(grid.n_steps), cases=int(cases),
+        shear=bool(has_shear),
+        platform=next(iter(leaf.sharding.device_set)).platform,
+        compile_s=compile_s, run_s=time.perf_counter() - t0,
+    ))
+    return out
 
 
 def _fold_reflector(props_np, reflector_mask, has_shear):
@@ -441,8 +389,8 @@ def _fold_reflector(props_np, reflector_mask, has_shear):
     (pi_u/mu_u) and the relaxation feeds (c_rp/c_rs) at those voxels: stress
     and pressure then stay identically zero there while velocities still
     evolve against the zero-stress (pressure-release) surface. Folding into
-    the material fields makes the reflector free on EVERY backend — XLA,
-    sharded, and all fused Pallas kernels — with no extra HBM stream.
+    the material fields makes the reflector free on the single-device and
+    sharded paths alike, with no extra memory stream.
     """
     keep = 1.0 - np.asarray(reflector_mask).astype(np.float32)
     props_np["pi_u"] = props_np["pi_u"] * keep
@@ -749,8 +697,8 @@ def _make_fluid_step_fn(grid: FDTDGrid, profiles, viscous, oz_scale, comm,
     When no material carries shear (the CT-mapping mode disables shear
     entirely, `BabelIntegrationBASE.py:1343-1351`), the viscoelastic system
     collapses to sxx=syy=szz=-p with one shared memory variable: 5 state
-    arrays and 6 CPML'd derivatives instead of 15 and 18 — a ~3x cut in HBM
-    traffic, which bounds this solver.
+    arrays and 6 CPML'd derivatives instead of 15 and 18 — a ~3x cut in
+    memory traffic, which bounds this solver.
     """
     dt_dx = grid.dt / grid.dx
     omega = 2.0 * np.pi * grid.frequency
@@ -1001,13 +949,11 @@ def run_fdtd(
     source_phase: np.ndarray | None = None,
     point_amp: float = 0.0,
     mesh=None,
-    backend: str = "auto",
     reflector_mask=None,
     volume_source: dict | None = None,
     sel_maps: tuple = (),
     monitor_ijk: np.ndarray | None = None,
     sensor_subsampling: int = 1,
-    fuse_steps: int | None = None,
 ):
     """Run the CW simulation and return carrier amplitude/phase/peak maps.
 
@@ -1026,42 +972,24 @@ def run_fdtd(
         along its first (and second) grid axis with ppermute halo exchange
         per step. Requires N1 (N2) divisible by the mesh axis size and the
         local extent >= npml+2 (so each PML slab lives on one edge shard).
-        The pallas backend supports 1-D x decomposition only.
-    backend : 'auto' | 'xla' | 'pallas'. 'pallas' uses the fused
-        streaming-slab TPU kernels (plane AND stress-point sources, fluid
-        and shear media, reflector masks); 'auto' picks pallas on a TPU
-        backend whenever the source type allows (volumetric dome sources
-        and sel_maps/monitor capture stay on the XLA path).
     reflector_mask : optional bool volume of air-cavity voxels forced to
         zero stress (the reference's ``ReflectorMask``,
         `BabelIntegrationBASE.py:2365`). Folded into the modulus fields
-        (see ``_fold_reflector``) so it is free on every backend.
-
+        (see ``_fold_reflector``) so it costs no extra stream.
+    volume_source : optional dict of (N1,N2,N3) ``amp``/``phase``/``ox``/
+        ``oy``/``oz`` volumes for ``velocity_volume`` (dome) sources.
     sel_maps : optional extra output maps, named ``<Field>_rms`` /
         ``<Field>_peak`` with Field in {Pressure, Vx, Vy, Vz, Sigmaxx,
         Sigmayy, Sigmazz} — the reference's ``SelMapsRMSPeakList`` +
         ``SelRMSorPeak`` capability (`BabelIntegrationBASE.py:2338-2429`).
+        Under a mesh they shard like the volume.
     monitor_ijk : optional (K,3) voxel indices whose pressure time series is
         returned (the reference's ``SensorOutput``/``SensorMap`` record;
         full-volume time series are deliberately not materialized — the
-        carrier DFT is accumulated in-kernel instead).
-    fuse_steps : optional pinned fused depth for the pallas kernels
-        (default: deepest K that fits VMEM). Pinning the SAME K on a
-        sharded and an unsharded run makes them bit-comparable: different
-        fused depths produce different (equally valid) compiler
-        instruction schedules whose FMA contractions can differ by an ULP
-        for volumetric phased drives.
+        carrier DFT is accumulated in the scan instead). Under a mesh the
+        series is psum'd to a replicated vector.
     sensor_subsampling : cadence for the monitor series (the reference's
         ``SensorSubSampling``); samples start at ``grid.sensor_start``.
-
-    ``sel_maps`` limited to ``Pressure_rms``/``Pressure_peak`` and
-    ``monitor_ijk`` stay on the fused Pallas fast path for unsharded fluid
-    runs (the RMS accumulator is fused into the DFT sweeps; the monitor
-    series is gathered once per sweep, so its cadence is the fused depth
-    and ``sensor_subsampling`` is ignored there — ``sensor_times`` always
-    reports the true sample times). Velocity/stress maps, shear media, and
-    sharded runs use the XLA path (extra maps shard like the volume,
-    monitor series are psum'd to a replicated vector).
 
     Returns
     -------
@@ -1082,37 +1010,11 @@ def run_fdtd(
     if bad:
         raise ValueError(f"unknown sel_maps entries: {sorted(bad)}")
     want_extras = bool(sel_maps) or monitor_ijk is not None
-    # Pressure maps + monitor capture are fused into the fluid fusedK DFT
-    # kernel (`BabelIntegrationBASE.py:2338-2429` SelMapsRMSPeakList parity
-    # without abandoning the fast path); everything else (velocity/stress
-    # maps, shear media, sharded runs) falls back to the XLA scan
-    pallas_extras_wanted = (
-        want_extras
-        and set(sel_maps) <= {"Pressure_rms", "Pressure_peak"}
-        and mesh is None
-        and backend in ("auto", "pallas")
-        and grid.source_type in ("velocity_plane", "stress_point")
-    )
-    if want_extras and not pallas_extras_wanted:
-        if backend == "pallas":
-            raise ValueError(
-                "only Pressure_rms/Pressure_peak sel_maps and monitor_ijk "
-                "run on the (unsharded, fluid) pallas path; other maps are "
-                "served by the XLA backend"
-            )
-        backend = "xla"
 
     mats = np.asarray(materials, np.float64)
     coefs = sls_coefficients(mats, grid.frequency, grid.dt)
     has_shear = bool(np.any(mats[:, 2] > 0))
     viscous = coefs["viscous"]
-
-    # Zero-shear volumetric sources (dome in CT mode — shear is disabled
-    # there, `BabelIntegrationBASE.py:1343-1351`) run through the FLUID
-    # fusedK kernel with in-kernel dome injection — ~3x the visco
-    # volumetric rate the round-4 zero-shear promotion used, and it
-    # shards (the 670 kHz DomeTx CT workload, `README.md:80`, gets both
-    # the fast kernel and the mesh).
 
     props_np = _material_fields(mat_idx, coefs, has_shear)
 
@@ -1149,294 +1051,6 @@ def run_fdtd(
     else:
         mesh_nx = mesh_ny = 1
 
-    use_pallas = False
-    pallas_src_ok = grid.source_type in ("velocity_plane", "stress_point")
-    mesh_on_tpu = (
-        mesh is not None
-        and next(iter(mesh.devices.flat)).platform == "tpu"
-    )
-    pallas_sharded = (
-        mesh is not None
-        and (backend == "pallas" or (backend == "auto" and mesh_on_tpu))
-        and mesh_ny == 1  # pallas ghost-plane kernels decompose x only
-        and (pallas_src_ok
-             or (grid.source_type == "velocity_volume" and not has_shear))
-    )
-    if pallas_sharded and backend == "auto":
-        # auto mode falls back to the XLA sharded path when the pallas
-        # constraints (even local extent) don't hold, instead of raising
-        n1_local, rem = divmod(grid.shape[0], max(mesh_nx, 1))
-        if rem or n1_local % 2 or n1_local < grid.npml + 2:
-            pallas_sharded = False
-        elif grid.source_type == "velocity_volume":
-            # sharded volumetric REQUIRES the fused overlap driver (the
-            # 1-step ghost-exchange fallback has no volumetric injection)
-            from .fdtd_pallas import _fusedK_auto, _sharded_fusedK_plan
-
-            gl = dataclasses.replace(
-                grid, shape=(n1_local,) + tuple(grid.shape[1:])
-            )
-            if _sharded_fusedK_plan(
-                n1_local, 2, grid.npml, None, gl,
-                auto_fn=functools.partial(_fusedK_auto, volume_src=True),
-            ) is None:
-                pallas_sharded = False
-    # dome volumetric sources run fused: zero-shear (CT) media on the
-    # fluid fusedK kernel (sharded included), shear media on the
-    # (unsharded) visco volumetric kernel
-    pallas_ok = mesh is None and (
-        pallas_src_ok or grid.source_type == "velocity_volume"
-    )
-    if backend in ("auto", "pallas") and pallas_ok:
-        plat = jax.devices()[0].platform
-        use_pallas = backend == "pallas" or plat != "cpu"
-    pallas_extras = False
-    if want_extras:
-        feasible = pallas_extras_wanted and use_pallas and not has_shear
-        if feasible:
-            from .fdtd_pallas import _fusedK_auto
-
-            window = grid.n_steps - grid.sensor_start
-            kd = _fusedK_auto(grid, 2, with_dft=True)
-            feasible = any(window % k == 0 for k in range(3, kd + 1))
-        if feasible:
-            pallas_extras = True
-        else:
-            if backend == "pallas":
-                raise ValueError(
-                    "pallas sel_maps/monitor need a fluid medium and a "
-                    "sensor window divisible by a fused depth >= 3"
-                )
-            backend = "xla"
-            use_pallas = False
-    if backend == "pallas" and not (use_pallas or pallas_sharded):
-        raise ValueError(
-            "pallas backend requires a velocity_plane or stress_point source"
-        )
-
-    if pallas_sharded:
-        from jax.sharding import PartitionSpec as P
-
-        from .fdtd_pallas import simulate_fluid_pallas, simulate_visco_pallas
-
-        nb = 2
-        n_shards = mesh.devices.size
-        n1_local, rem = divmod(grid.shape[0], n_shards)
-        if rem or n1_local % nb:
-            raise ValueError(
-                f"N1={grid.shape[0]} must divide into mesh size {n_shards} "
-                f"with an even local extent"
-            )
-        if n1_local < grid.npml + 2:
-            raise ValueError("shard too thin for the PML slab; reduce mesh size")
-        profiles_np = _build_cpml_profiles_np(
-            grid.shape, grid.npml, grid.dx, grid.dt, cmax,
-            grid.reflection_limit,
-        )
-        grid_local = dataclasses.replace(
-            grid, shape=(n1_local, grid.shape[1], grid.shape[2])
-        )
-        comm = DomainComm("x", n_shards)
-        interpret = next(iter(mesh.devices.flat)).platform == "cpu"
-        spec3 = P("x", None, None)
-        spec2 = P("x", None)
-        props = {k: jnp.asarray(v) for k, v in props_np.items()}
-        if has_shear:
-            indexed = _build_indexed_materials(
-                coefs, mat_idx, reflector_mask, grid.shape[2]
-            )
-            extra_args, extra_specs = (), ()
-            if indexed is not None:
-                extra_args = (jnp.asarray(indexed[0]),
-                              jnp.asarray(indexed[1]))
-                extra_specs = (spec3, P())
-
-            def run_sharded_visco(pr, a, p, pa, *mats):
-                mkw = (dict(mat_idx=mats[0], mat_table=mats[1])
-                       if mats else {})
-                return simulate_visco_pallas(
-                    pr, a, p, pa,
-                    grid=grid_local, profiles_np=profiles_np,
-                    viscous=viscous, oz_scale=oz_scale, nb=nb,
-                    comm=comm, interpret=interpret,
-                    fuse_steps=fuse_steps, **mkw,
-                )
-
-            fn = jax.jit(
-                jax.shard_map(
-                    run_sharded_visco,
-                    mesh=mesh,
-                    in_specs=({k: spec3 for k in props_np}, spec2, spec2,
-                              P()) + extra_specs,
-                    out_specs=(spec3, spec3, spec3),
-                    # pallas_call outputs carry no vma annotation
-                    check_vma=False,
-                )
-            )
-            acc_c, acc_s, peak = fn(
-                props, jnp.asarray(src_amp), jnp.asarray(src_phase),
-                jnp.float32(point_amp), *extra_args,
-            )
-        else:
-            vol_in = ()
-            vol_specs = ()
-            if vol_src_np is not None:
-                vs_j = {k: jnp.asarray(v) for k, v in vol_src_np.items()}
-                vol_in = (vs_j,)
-                vol_specs = ({k: spec3 for k in vs_j},)
-
-            def run_sharded_fluid(pr, a, p, pa, *vols):
-                vkw = dict(volume_source=vols[0]) if vols else {}
-                return simulate_fluid_pallas(
-                    pr, a, p, pa,
-                    grid=grid_local, profiles_np=profiles_np,
-                    viscous=viscous, oz_scale=oz_scale, nb=nb,
-                    comm=comm, interpret=interpret,
-                    fuse_steps=fuse_steps, **vkw,
-                )
-
-            fn = jax.jit(
-                jax.shard_map(
-                    run_sharded_fluid,
-                    mesh=mesh,
-                    in_specs=({k: spec3 for k in props_np}, spec2, spec2,
-                              P()) + vol_specs,
-                    out_specs=(spec3, spec3, spec3),
-                    # pallas_call outputs carry no vma annotation
-                    check_vma=False,
-                )
-            )
-            acc_c, acc_s, peak = fn(
-                props, jnp.asarray(src_amp), jnp.asarray(src_phase),
-                jnp.float32(point_amp), *vol_in,
-            )
-        acc_c = np.asarray(acc_c)
-        acc_s = np.asarray(acc_s)
-        n_win = grid.n_steps - grid.sensor_start
-        amp = 2.0 / n_win * np.sqrt(acc_c**2 + acc_s**2)
-        phase = np.arctan2(-acc_s, acc_c)
-        return {
-            "p_amp": amp.astype(np.float32),
-            "p_phase": phase.astype(np.float32),
-            "peak": np.asarray(peak),
-        }
-
-    if use_pallas:
-        from .fdtd_pallas import simulate_fluid_pallas, simulate_visco_pallas
-
-        nb = 2
-        if grid.shape[0] % nb:
-            raise ValueError("N1 must be even for the pallas backend")
-        profiles_np = _build_cpml_profiles_np(
-            grid.shape, grid.npml, grid.dx, grid.dt, cmax,
-            grid.reflection_limit,
-        )
-        props = {k: jnp.asarray(v) for k, v in props_np.items()}
-        # off-TPU (explicit backend='pallas' on CPU) run the interpreter
-        interpret = jax.devices()[0].platform == "cpu"
-        if has_shear:
-            vol_in = (None,)
-            if vol_src_np is not None:
-                vol_in = ({k: jnp.asarray(v) for k, v in vol_src_np.items()},)
-            indexed = _build_indexed_materials(
-                coefs, mat_idx, reflector_mask, grid.shape[2]
-            )
-            extra_args = ()
-            if indexed is not None:
-                extra_args = (jnp.asarray(indexed[0]),
-                              jnp.asarray(indexed[1]))
-
-            def call(shrink):
-                def run_visco(pr, a, p, pa, vol, *mats):
-                    mkw = (dict(mat_idx=mats[0], mat_table=mats[1])
-                           if mats else {})
-                    return simulate_visco_pallas(
-                        pr, a, p, pa,
-                        grid=grid, profiles_np=profiles_np, viscous=viscous,
-                        oz_scale=oz_scale, nb=nb, interpret=interpret,
-                        k_shrink=shrink, fuse_steps=fuse_steps,
-                        volume_source=vol, **mkw,
-                    )
-
-                key = ("visco", grid, float(cmax), float(oz_scale),
-                       viscous, indexed is not None,
-                       vol_src_np is not None, fuse_steps, shrink,
-                       interpret)
-                fn = _cached_executable(key, lambda: jax.jit(run_visco))
-                return fn(
-                    props, jnp.asarray(src_amp), jnp.asarray(src_phase),
-                    jnp.float32(point_amp), *vol_in, *extra_args,
-                )
-
-            acc_c, acc_s, peak = _pallas_with_vmem_fallback(call)
-        else:
-            sel_p2 = "Pressure_rms" in sel_maps
-            pmon_idx = None
-            if pallas_extras and monitor_ijk is not None:
-                mi_np = np.asarray(monitor_ijk, np.int64).reshape(-1, 3)
-                pmon_idx = tuple(jnp.asarray(mi_np[:, d]) for d in range(3))
-            vol_in = (None,)
-            if vol_src_np is not None:
-                vol_in = ({k: jnp.asarray(v) for k, v in vol_src_np.items()},)
-
-            def call(shrink):
-                def run_fluid(pr, a, p, pa, vol):
-                    return simulate_fluid_pallas(
-                        pr, a, p, pa,
-                        grid=grid, profiles_np=profiles_np, viscous=viscous,
-                        oz_scale=oz_scale, nb=nb, interpret=interpret,
-                        k_shrink=shrink, fuse_steps=fuse_steps,
-                        sel_p2=sel_p2 and pallas_extras,
-                        monitor_idx=pmon_idx,
-                        volume_source=vol,
-                    )
-
-                if pmon_idx is None:
-                    key = ("fluid", grid, float(cmax), float(oz_scale),
-                           viscous, vol_src_np is not None,
-                           sel_p2 and pallas_extras, fuse_steps, shrink,
-                           interpret)
-                    fn = _cached_executable(key, lambda: jax.jit(run_fluid))
-                else:
-                    # monitor voxel indices live in the closure: per-case
-                    fn = jax.jit(run_fluid)
-                return fn(
-                    props, jnp.asarray(src_amp), jnp.asarray(src_phase),
-                    jnp.float32(point_amp), *vol_in,
-                )
-
-            out = _pallas_with_vmem_fallback(call)
-            acc_c, acc_s, peak = out[:3]
-            p_extras = out[3] if len(out) > 3 else {}
-        acc_c = np.asarray(acc_c)
-        acc_s = np.asarray(acc_s)
-        n_win = grid.n_steps - grid.sensor_start
-        amp = 2.0 / n_win * np.sqrt(acc_c**2 + acc_s**2)
-        phase = np.arctan2(-acc_s, acc_c)
-        result = {
-            "p_amp": amp.astype(np.float32),
-            "p_phase": phase.astype(np.float32),
-            "peak": np.asarray(peak),
-        }
-        if pallas_extras:
-            if "Pressure_peak" in sel_maps:
-                result["Pressure_peak"] = np.asarray(peak)
-            if "Pressure_rms" in sel_maps:
-                result["Pressure_rms"] = np.sqrt(
-                    np.asarray(p_extras["acc_p2"]) / n_win
-                ).astype(np.float32)
-            if monitor_ijk is not None:
-                # cadence = the fused depth of the window sweeps (the
-                # returned times are exact for the emitted samples)
-                result["sensor_series"] = (
-                    np.asarray(p_extras["monitor_series"]).T
-                    .astype(np.float32)
-                )
-                result["sensor_times"] = (
-                    np.asarray(p_extras["monitor_steps"]) * grid.dt
-                ).astype(np.float32)
-        return result
-
     if vol_src_np is not None:
         # XLA path carries the volumetric source through the props dict
         # (popped into the scan carry by _simulate_local)
@@ -1449,28 +1063,6 @@ def run_fdtd(
         monitor_idx = tuple(jnp.asarray(mi[:, d]) for d in range(3))
     if mesh is None:
         comm = DomainComm()
-
-        def _mk_xla():
-            return jax.jit(
-                functools.partial(
-                    _simulate_local,
-                    grid=grid,
-                    profiles=profiles,
-                    viscous=viscous,
-                    has_shear=has_shear,
-                    oz_scale=oz_scale,
-                    comm=comm,
-                    extras=sel_maps,
-                    monitor_idx=monitor_idx,
-                )
-            )
-
-        if monitor_idx is None:
-            key = ("xla", grid, float(cmax), float(oz_scale), viscous,
-                   has_shear, sel_maps, vol_src_np is not None)
-            fn = _cached_executable(key, _mk_xla)
-        else:
-            fn = _mk_xla()
     else:
         from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -1488,6 +1080,21 @@ def run_fdtd(
         comm = DomainComm(ax_x, mesh_nx, axis_name_y=ax_y, n_shards_y=mesh_ny)
         spec3 = P(ax_x, ax_y, None)
         spec2 = P(ax_x, ax_y)
+    local = functools.partial(
+        _simulate_local,
+        grid=grid,
+        profiles=profiles,
+        viscous=viscous,
+        has_shear=has_shear,
+        oz_scale=oz_scale,
+        comm=comm,
+        extras=sel_maps,
+        monitor_idx=monitor_idx,
+    )
+
+    def make():
+        if mesh is None:
+            return jax.jit(local)
         out_specs = (spec3, spec3, spec3)
         if want_extras:
             # extras shard like the volume; the monitor series is psum'd
@@ -1496,19 +1103,9 @@ def run_fdtd(
                 {name: spec3 for name in sel_maps},
                 None if monitor_idx is None else P(),
             )
-        fn = jax.jit(
+        return jax.jit(
             jax.shard_map(
-                functools.partial(
-                    _simulate_local,
-                    grid=grid,
-                    profiles=profiles,
-                    viscous=viscous,
-                    has_shear=has_shear,
-                    oz_scale=oz_scale,
-                    comm=comm,
-                    extras=sel_maps,
-                    monitor_idx=monitor_idx,
-                ),
+                local,
                 mesh=mesh,
                 in_specs=({k: spec3 for k in props_np}, spec2, spec2, P()),
                 out_specs=out_specs,
@@ -1519,7 +1116,7 @@ def run_fdtd(
     if mesh is not None:
         # explicit global shardings: each process supplies the full array and
         # device_put keeps only its addressable shards — this is what makes
-        # the same call work across hosts over DCN (jax.distributed)
+        # the same call work across hosts (jax.distributed)
         ns3 = NamedSharding(mesh, spec3)
         ns2 = NamedSharding(mesh, spec2)
         ns0 = NamedSharding(mesh, P())
@@ -1536,7 +1133,13 @@ def run_fdtd(
             props, jnp.asarray(src_amp), jnp.asarray(src_phase),
             jnp.float32(point_amp),
         )
-    out = fn(*args)
+    # monitor voxel indices live in the closure: compiled per call
+    key = None if monitor_idx is not None else (
+        "xla", grid, float(cmax), float(oz_scale), viscous, has_shear,
+        sel_maps, vol_src_np is not None, mesh_nx, mesh_ny,
+    )
+    exe, compile_s = _compiled_executable(key, make, args)
+    out = _run_logged(exe, args, compile_s, grid, has_shear)
 
     def to_np(x):
         if multi_host:
@@ -1748,28 +1351,34 @@ def run_fdtd_batch(
 
     pad = 0
     if mesh is None:
-        fn = jax.jit(make_batched())
+        def make():
+            return jax.jit(make_batched())
     else:
         n_dev = mesh.devices.size
         axis = mesh.axis_names[0]
-        batched = make_batched(vary_axes=(axis,))
         pad = (-n_cases) % n_dev
         if pad:
             amps = np.concatenate([amps, np.zeros((pad,) + amps.shape[1:], np.float32)])
             phases = np.concatenate(
                 [phases, np.zeros((pad,) + phases.shape[1:], np.float32)]
             )
-        fn = jax.jit(
-            jax.shard_map(
-                batched,
-                mesh=mesh,
-                in_specs=(P(axis), P(axis), {k: P() for k in props_np}),
-                out_specs=(P(axis), P(axis), P(axis)),
+
+        def make():
+            return jax.jit(
+                jax.shard_map(
+                    make_batched(vary_axes=(axis,)),
+                    mesh=mesh,
+                    in_specs=(P(axis), P(axis), {k: P() for k in props_np}),
+                    out_specs=(P(axis), P(axis), P(axis)),
+                )
             )
-        )
 
     props = {k: jnp.asarray(v) for k, v in props_np.items()}
-    acc_c, acc_s, peak = fn(jnp.asarray(amps), jnp.asarray(phases), props)
+    args = (jnp.asarray(amps), jnp.asarray(phases), props)
+    exe, compile_s = _compiled_executable(None, make, args)
+    acc_c, acc_s, peak = _run_logged(
+        exe, args, compile_s, grid, has_shear, cases=amps.shape[0]
+    )
     acc_c = np.asarray(acc_c)[:n_cases]
     acc_s = np.asarray(acc_s)[:n_cases]
     n_win = grid.n_steps - grid.sensor_start

@@ -1,4 +1,4 @@
-"""Volume image-processing ops (TPU equivalents of the reference's GPU kernels).
+"""Volume image-processing ops (JAX equivalents of the reference's GPU kernels).
 
 The reference ships six C kernels compiled for 4 GPU backends
 (`BabelBrain/GPUFunctions/`, SURVEY.md section 2.3). Their XLA-native
@@ -233,6 +233,11 @@ def map_to_unique(volume, unique_values, mask=None):
     return np.asarray(out)
 
 
+# voxel coordinates reach ~300: a TF32 product (10-bit mantissa) would
+# misplace samples by 0.1-0.3 voxel on a GPU
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
 # ---------------------------------------------------------------------------
 # affine resampling
 # ---------------------------------------------------------------------------
@@ -247,7 +252,7 @@ def _resample(vol, matrix, offset, out_shape, order):
         indexing="ij",
     )
     coords = jnp.stack([ii.ravel(), jj.ravel(), kk.ravel()])
-    src = matrix @ coords + offset[:, None]
+    src = jnp.dot(matrix, coords, precision=_HIGHEST) + offset[:, None]
     from jax.scipy.ndimage import map_coordinates
 
     out = map_coordinates(vol, [src[0], src[1], src[2]], order=order, mode="constant")
@@ -277,7 +282,7 @@ def _resample_cubic(coeff, matrix, offset, out_shape):
         indexing="ij",
     )
     coords = jnp.stack([ii.ravel(), jj.ravel(), kk.ravel()])
-    src = matrix @ coords + offset[:, None]
+    src = jnp.dot(matrix, coords, precision=_HIGHEST) + offset[:, None]
 
     base = jnp.floor(src).astype(jnp.int32)  # (3, P)
     frac = src - base

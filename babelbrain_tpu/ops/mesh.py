@@ -5,7 +5,7 @@ Covers the reference's mesh toolchain for Step 1 (SURVEY.md section 2.2):
 `smooth` `:71`) and the cone/box FOV intersection `DoIntersect`
 (`BabelDatasetPreps.py:264`, manifold3d/Blender boolean). These run on the
 host: meshing is an irregular one-shot preprocessing op (milliseconds on
-the volumes involved), while the resulting grids are what the TPU consumes.
+the volumes involved), while the resulting grids are what the device consumes.
 
 Design notes
 ------------

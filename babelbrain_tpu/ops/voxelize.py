@@ -7,7 +7,7 @@ candidate (triangle, ray) pairs from yz-bounding boxes, Möller-Trumbore
 intersection for all pairs at once, crossing-parity prefix (cumsum mod 2)
 along x. Runs host-side (NumPy): voxelization is a once-per-case setup step
 and is irregular, which SURVEY.md flags as the one op that does not map
-cleanly onto the MXU/VPU.
+cleanly onto dense array math.
 
 STL reading supports binary and ASCII; writing is binary.
 """

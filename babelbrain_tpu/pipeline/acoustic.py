@@ -2,7 +2,7 @@
 
 Orchestrates the reference's 10-step sequence
 (`TranscranialModeling/BabelIntegrationBASE.py:994-1033`, SURVEY.md
-section 3.2) TPU-natively:
+section 3.2) in JAX:
 
   S1  domain + materials           (pipeline.domain)
   S2  forward Rayleigh to the source plane          (ops.rayleigh)

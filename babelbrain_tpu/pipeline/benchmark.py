@@ -61,7 +61,6 @@ def run_benchmark_acoustic(
     alpha_cfl: float = 0.5,
     source_plane_z: int = 13,
     mesh=None,
-    backend: str = "auto",
 ):
     """Run the FDTD on a benchmark medium with a given CW source plane.
 
@@ -102,7 +101,7 @@ def run_benchmark_acoustic(
     )
     out = run_fdtd(
         mat_map, mats, grid, source_amp=source_amp, source_phase=source_phase,
-        mesh=mesh, backend=backend,
+        mesh=mesh,
     )
     out["grid"] = grid
     out["benchmark"] = bench

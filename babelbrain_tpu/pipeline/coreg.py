@@ -2,7 +2,7 @@
 
 The reference shells out to the external elastix binary with a rigid
 parameter file (`BabelBrain/CTZTEProcessing.py:111`, `ExternalBin/elastix/
-rigid.txt`). TPU-natively this is just an optimization over 6 rigid
+rigid.txt`). Here this is just an optimization over 6 rigid
 parameters with a differentiable resampler: JAX autodiff through
 ``map_coordinates`` gives exact gradients of the similarity metric, and a
 multi-resolution Adam loop converges in a few hundred steps — no external
@@ -39,6 +39,11 @@ def registration_ok(quality: float, metric: str = "ncc") -> bool:
     return float(quality) >= QUALITY_THRESHOLD[metric]
 
 
+# float32 products stay off TF32 on a GPU: the rigid transform maps voxel
+# coordinates (~300) and the MI joint histogram sums millions of weights
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
 def euler_matrix(rx, ry, rz):
     cx, sx = jnp.cos(rx), jnp.sin(rx)
     cy, sy = jnp.cos(ry), jnp.sin(ry)
@@ -46,7 +51,8 @@ def euler_matrix(rx, ry, rz):
     Rx = jnp.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
     Ry = jnp.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
     Rz = jnp.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
-    return Rz @ Ry @ Rx
+    return jnp.dot(jnp.dot(Rz, Ry, precision=_HIGHEST), Rx,
+                   precision=_HIGHEST)
 
 
 def _resample_rigid(moving, params, shape, center):
@@ -60,7 +66,7 @@ def _resample_rigid(moving, params, shape, center):
         indexing="ij",
     )
     pts = jnp.stack([ii.ravel(), jj.ravel(), kk.ravel()]) - center[:, None]
-    src = R @ pts + center[:, None] + t[:, None]
+    src = jnp.dot(R, pts, precision=_HIGHEST) + center[:, None] + t[:, None]
     out = map_coordinates(moving, [src[0], src[1], src[2]], order=1, mode="constant")
     return out.reshape(shape)
 
@@ -90,7 +96,7 @@ def _mutual_information(a, b, bins: int = 32):
     wb = jnp.exp(-0.5 * ((bv[:, None] - centers[None, :]) / sig) ** 2)
     wa = wa / (wa.sum(axis=1, keepdims=True) + 1e-12)
     wb = wb / (wb.sum(axis=1, keepdims=True) + 1e-12)
-    pab = (wa.T @ wb) / av.shape[0]
+    pab = jnp.dot(wa.T, wb, precision=_HIGHEST) / av.shape[0]
     pa = pab.sum(axis=1)
     pb = pab.sum(axis=0)
     return jnp.sum(

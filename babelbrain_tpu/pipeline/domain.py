@@ -279,8 +279,8 @@ def build_domain(
     cycles, so near-equal cases of a targets x frequencies x PPW matrix
     share one canonical grid signature — and hence ONE compiled
     executable through ``run_fdtd``'s in-process memo (the reference's
-    case loop is compile-free, `BabelIntegrationBASE.py:884-1037`; on a
-    remote-compile TPU runtime every distinct shape costs minutes). The
+    case loop is compile-free, `BabelIntegrationBASE.py:884-1037`; each
+    distinct shape costs a fresh FDTD compilation). The
     extra cells are water behind the PML-side padding: fields there are
     physically inert, and the extra settle cycles only deepen steady
     state.

@@ -7,6 +7,8 @@
 * Nested-dict HDF5 — the BabelViscoFDTD ``H5pySimple`` contract
   (`ReadFromH5py/SaveToH5py`): groups are dicts, datasets are arrays or
   scalars (SURVEY.md section 2.9; `InformationForDrivingSystems.md`).
+  ``h5py`` is imported only by the HDF5 functions, so the NIfTI half of
+  this module works without it.
 """
 
 from __future__ import annotations
@@ -15,7 +17,6 @@ import gzip
 import struct
 import threading
 
-import h5py
 import numpy as np
 
 # h5py's own global lock is NOT sufficient for the low-level direct-chunk
@@ -167,6 +168,8 @@ def _write_blosc_dataset(group, name, arr):
     bypassed via ``write_direct_chunk``, so no blosc plugin is needed to
     WRITE; stock c-blosc/hdf5plugin readers — the reference's driving
     systems, `InformationForDrivingSystems.md:12-16` — decode it)."""
+    import h5py
+
     from ..native import blosc_compress
 
     arr = np.ascontiguousarray(arr)
@@ -194,6 +197,7 @@ def save_dict_h5(data: dict, path: str, compression="gzip"):
     ``compression='blosc'`` writes arrays with the reference's BLOSC1/LZ4
     filter (id 32001) for driving-system interop; 'gzip' (default) uses
     the stock HDF5 deflate filter."""
+    import h5py
 
     def write(group, d):
         for k, v in d.items():
@@ -254,6 +258,7 @@ def read_h5_dataset(dset) -> "np.ndarray":
 
 def load_dict_h5(path: str) -> dict:
     """ReadFromH5py equivalent (handles BLOSC-compressed reference files)."""
+    import h5py
 
     def read(group):
         if "__list_of_dicts__" in group.attrs:

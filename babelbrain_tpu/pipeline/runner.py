@@ -280,8 +280,8 @@ def run_cases(
     attribute with the FDTD executable build/reuse counters for the
     sweep — with ``cfg.shape_bucket`` set, near-equal cells collapse
     onto shared compiled executables (the reference's compile-free case
-    loop, `BabelIntegrationBASE.py:884-1037`; on a remote-compile TPU
-    runtime each distinct shape costs minutes of compilation).
+    loop, `BabelIntegrationBASE.py:884-1037`; each distinct shape costs
+    a fresh FDTD compilation).
     """
     import dataclasses as _dc
 
@@ -339,10 +339,16 @@ def run_case(
     mask_shape=None,
     mesh=None,
     force_recalc=False,
+    write_h5=True,
 ):
     """Run the full pipeline for one case; returns a results dict and writes
     the reference's output files (BabelViscoInput.nii.gz, DataForSim.h5,
     ThermalField h5).
+
+    ``write_h5=False`` skips every HDF5 file (Step-1 and pseudo-CT caches,
+    DataForSim and its water companion, the thermal outputs) for
+    installations without ``h5py``; the NIfTI outputs and the returned
+    dicts are unchanged, and ``files`` reports the HDF5 entries as None.
 
     Caching: a blake2s hash over the inputs + config is stored next to the
     outputs; when it matches and ``force_recalc`` is False, Steps 1+2 are
@@ -430,15 +436,16 @@ def run_case(
                     np.asarray(ct_data, np.float64), head, ct_type,
                     norm_range=tuple(cfg.zte_range),
                 )
-            pio.save_dict_h5(
-                {
-                    "pct": np.asarray(ct_data),
-                    "affine": np.asarray(
-                        ct_affine if ct_affine is not None else np.eye(4)
-                    ),
-                },
-                pct_cache,
-            )
+            if write_h5:
+                pio.save_dict_h5(
+                    {
+                        "pct": np.asarray(ct_data),
+                        "affine": np.asarray(
+                            ct_affine if ct_affine is not None else np.eye(4)
+                        ),
+                    },
+                    pct_cache,
+                )
     bone_threshold = (
         cfg.density_threshold if ct_type == "DENSITY" else cfg.hu_threshold
     )
@@ -582,7 +589,8 @@ def run_case(
                 blob["unique_hu"] = s1.unique_hu
             if s1.air_mask is not None:
                 blob["air_mask"] = s1.air_mask.astype(np.uint8)
-            pio.save_dict_h5(blob, s1_cache)
+            if write_h5:
+                pio.save_dict_h5(blob, s1_cache)
     if cfg.export_meshes:
         from .step1 import export_surface_meshes
 
@@ -736,19 +744,21 @@ def run_case(
         # reference's FileManager thread-pool saves,
         # `BabelBrain/FileManager.py:127-152`)
         saver = pio.AsyncSaver()
-        saver.save_dict_h5(data, h5_path, compression="blosc")
-        # companion water file: the reference's thermal step resolves
-        # `..._Water_DataForSim.h5` next to the skull file and reads its
-        # `p_amp` (`CalculateTemperatureEffects.py:683-690`), so writing it
-        # makes these outputs drop-in inputs for the reference's Step 3
-        saver.save_dict_h5(
-            {
-                "p_amp": np.asarray(data["p_amp_water"]),
-                "SpatialStep": dom.dx,
-            },
-            out_base + "_Water_DataForSim.h5",
-            compression="blosc",
-        )
+        if write_h5:
+            saver.save_dict_h5(data, h5_path, compression="blosc")
+            # companion water file: the reference's thermal step resolves
+            # `..._Water_DataForSim.h5` next to the skull file and reads its
+            # `p_amp` (`CalculateTemperatureEffects.py:683-690`), so writing
+            # it makes these outputs drop-in inputs for the reference's
+            # Step 3
+            saver.save_dict_h5(
+                {
+                    "p_amp": np.asarray(data["p_amp_water"]),
+                    "SpatialStep": dom.dx,
+                },
+                out_base + "_Water_DataForSim.h5",
+                compression="blosc",
+            )
         # display NIfTIs for Brainsight/Slicer overlays, the reference's
         # OutputFileNames contract (`BabelIntegrationBASE.py:1039-1067`);
         # the mask grid is already isotropic so a plain save satisfies the
@@ -789,7 +799,7 @@ def run_case(
                 dom.dx,
                 data["TargetLocation"],
                 list(thermal_params),
-                out_base=out_base,
+                out_base=out_base if write_h5 else None,
                 ct_mode=ct_mode,
                 segmented=cfg.segment_brain,
                 frequency=cfg.frequency,
@@ -831,8 +841,9 @@ def run_case(
                 "dt": 0.01,
             }
             tdict.update(thermal.metrics)
-            saver.save_dict_h5(tdict, out_base + "_ThermalField.h5",
-                               compression="blosc")
+            if write_h5:
+                saver.save_dict_h5(tdict, out_base + "_ThermalField.h5",
+                                   compression="blosc")
 
     # all background saves must land (and any writer error surface) before
     # the hash marks the case complete
@@ -863,7 +874,10 @@ def run_case(
         "data_for_sim": data,
         "files": {
             "mask": out_base + "_BabelViscoInput.nii.gz",
-            "acoustic": h5_path,
-            "thermal": out_base + "_ThermalField.h5" if thermal else None,
+            "acoustic": h5_path if write_h5 else None,
+            "thermal": (
+                out_base + "_ThermalField.h5"
+                if thermal and write_h5 else None
+            ),
         },
     }

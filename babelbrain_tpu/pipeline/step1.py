@@ -1,6 +1,6 @@
 """Step 1 — domain generation: segmentation + trajectory -> material mask.
 
-TPU-first redesign of `BabelBrain/BabelDatasetPreps.py:GetSkullMaskFromSimbNIBSSTL`
+Array-first redesign of `BabelBrain/BabelDatasetPreps.py:GetSkullMaskFromSimbNIBSSTL`
 (SURVEY.md sections 2.2/3.1). The reference goes labels -> marching-cubes
 STL meshes -> GPU voxelization back to a grid; since meshing exists there
 mainly for smoothing/FOV-cone intersection, this implementation works

@@ -1,6 +1,6 @@
 """Step-3 thermal pipeline: losses analysis, BHTE schedule, safety metrics.
 
-Re-implements `ThermalModeling/CalculateTemperatureEffects.py` TPU-natively:
+Re-implements `ThermalModeling/CalculateTemperatureEffects.py` in JAX:
 
 * ``analyze_losses`` — PressureRatio to hit the requested Isppa at the focal
   spot and RatioLosses from plane-integral acoustic energies at the water /
@@ -145,8 +145,7 @@ class ThermalResult:
     metrics: dict = field(default_factory=dict)
     pressure_ratio: float = 1.0
     ratio_losses: float = 1.0
-    # step index of each monitor sample (per-step for the XLA BHTE path,
-    # once per fused sweep for the Pallas path)
+    # step index of each monitor sample
     monitor_steps: np.ndarray | None = None
 
 

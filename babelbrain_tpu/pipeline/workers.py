@@ -11,12 +11,17 @@ failures with a stdout sentinel (SURVEY.md sections 2.1/5):
   parent (`BabelBrain.py:1605-1641`)
 * stdout-as-log via an ``InOutputWrapper`` (`CalculateFieldProcess.py:10-35`)
 
-On TPU none of this is needed for correctness (no GPU-driver leaks to
-contain), but the *contract* matters for external driving systems
+The *contract* matters for external driving systems
 (`InformationForDrivingSystems.md`): a supervisor must be able to run a step
 out-of-process, stream its structured `CTS:` logs live, and detect failure
 from the stream. This module keeps that contract with a generic
 ``run_step_in_process`` plus thin step wrappers.
+
+The child is a fresh spawned process that initialises JAX itself. On a GPU
+the parent must therefore not have initialised the GPU backend (no JAX
+computation or ``jax.devices()`` call before the step): a JAX process
+reserves most of the card's memory when it first touches it, and the child
+needs that memory.
 """
 
 from __future__ import annotations

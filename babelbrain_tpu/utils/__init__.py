@@ -1,1 +1,6 @@
-from .timing import clear_spans, recorded_spans, stage_timer  # noqa: F401
+from .timing import (  # noqa: F401
+    clear_spans,
+    open_spans,
+    recorded_spans,
+    stage_timer,
+)

@@ -14,6 +14,7 @@ import os
 import time
 
 _SPANS: list[tuple[str, float]] = []
+_OPEN: list[str] = []  # tags of the spans currently running, outermost first
 
 
 @contextlib.contextmanager
@@ -23,7 +24,7 @@ def stage_timer(label: str, level: int = 2, step: int | None = None, quiet=False
     With ``BBT_PROFILE_DIR=<dir>`` set, each span additionally runs under a
     ``jax.profiler`` trace annotation (and the top-level span starts a
     profiler trace into that directory), so device timelines carry the same
-    stage vocabulary as the logs — the TPU equivalent of the reference's
+    stage vocabulary as the logs — the equivalent of the reference's
     linetimer+telemetry span scheme (SURVEY.md section 5).
     """
     tag = f"CTS:L{level}" + (f":S{step}" if step is not None else "") + f": {label}"
@@ -39,10 +40,12 @@ def stage_timer(label: str, level: int = 2, step: int | None = None, quiet=False
         except Exception:
             pass  # profiling must never break the pipeline
     t0 = time.time()
+    _OPEN.append(tag)
     try:
         with ctx:
             yield
     finally:
+        _OPEN.pop()
         dt = time.time() - t0
         _SPANS.append((tag, dt))
         if not quiet:
@@ -57,6 +60,11 @@ def stage_timer(label: str, level: int = 2, step: int | None = None, quiet=False
 
 def recorded_spans():
     return list(_SPANS)
+
+
+def open_spans():
+    """Tags of the spans running now, outermost first."""
+    return list(_OPEN)
 
 
 def clear_spans():

@@ -1,4 +1,4 @@
-"""Test fixtures. The CPU-mesh re-exec shim lives in the root conftest.py."""
+"""Test fixtures. The 8-device CPU mesh flag is set in the root conftest.py."""
 
 import numpy as np
 import pytest

@@ -3,8 +3,8 @@
 Launched by ``tests/test_multihost.py`` as N separate processes, each owning
 a slice of virtual CPU devices; together they form one global JAX runtime
 (`jax.distributed.initialize`) so the shard_map halo-exchange path runs its
-collectives across process boundaries — the same code path a multi-host TPU
-pod uses over DCN. The reference has no distributed story at all
+collectives across process boundaries — the same code path a multi-host
+GPU cluster uses over its network. The reference has no distributed story at all
 (SURVEY.md section 2.8); this tier is new capability.
 
 Usage: python multihost_worker.py <pid> <nprocs> <port> <ref_npz>

@@ -348,9 +348,52 @@ class TestAnalyzeLossesReferenceParity:
         assert rl == pytest.approx((pt.max() / pww.max()) ** 2, rel=1e-12)
 
 
-class TestBHTEPallas:
-    """Temporally-blocked Pallas BHTE (`ops.bhte_pallas`): K fused
-    timesteps per streaming sweep must reproduce the XLA scan."""
+def _bhte_reference(p_fields, idx, mats, dx, dt, sched, duty, t0, t_art):
+    """Float64 NumPy FTCS + CEM43 written from the model equations:
+    rho C dT/dt = div(k grad T) + w rho_b C_b (T_a - T) + Q, zero-flux
+    walls, harmonic-mean face conductivities, dose += dt R^(43 - T)."""
+    from babelbrain_tpu.ops.bhte import BLOOD_DENSITY, BLOOD_SPECIFIC_HEAT
+
+    rho = np.asarray(mats.density, np.float64)[idx]
+    cp = np.asarray(mats.specific_heat, np.float64)[idx]
+    k = np.asarray(mats.conductivity, np.float64)[idx]
+    w = np.asarray(mats.perfusion, np.float64)[idx] * rho / 60e6
+    c = np.asarray(mats.sos, np.float64)[idx]
+    att = np.asarray(mats.attenuation, np.float64)[idx]
+    absf = np.asarray(mats.absorption, np.float64)[idx]
+    Q = [absf * att * np.asarray(f, np.float64) ** 2 / (rho * c) * duty
+         for f in p_fields]
+
+    def face_k(axis, side):
+        nb = np.take(k, np.clip(np.arange(k.shape[axis]) + side, 0,
+                                k.shape[axis] - 1), axis=axis)
+        return 2 * k * nb / (k + nb + 1e-30)
+
+    faces = [(a, sd, face_k(a, sd)) for a in range(3) for sd in (-1, 1)]
+    T = np.array(t0, np.float64)
+    dose = np.zeros_like(T)
+    peak = np.full_like(T, -1e9)
+    for f_idx, n, on in sched:
+        heat = Q[f_idx] if (on and f_idx >= 0) else 0.0
+        for _ in range(n):
+            lap = sum(
+                kf * (np.take(T, np.clip(np.arange(T.shape[a]) + sd, 0,
+                                         T.shape[a] - 1), axis=a) - T)
+                for a, sd, kf in faces
+            ) / dx**2
+            T = T + dt / (rho * cp) * (
+                lap + w * BLOOD_DENSITY * BLOOD_SPECIFIC_HEAT * (t_art - T)
+                + heat
+            )
+            dose += dt * np.where(T >= 43.0, 0.5, 0.25) ** (43.0 - T)
+            peak = np.maximum(peak, T)
+    return T, dose, peak
+
+
+class TestBHTEReference:
+    """``bhte_run``'s float32 XLA scan against an independent float64
+    NumPy FTCS/CEM43 reference over a multi-segment, two-field schedule
+    (field switching, off phases, both CEM43 branches)."""
 
     def _setup(self):
         from babelbrain_tpu.materials import (
@@ -358,7 +401,7 @@ class TestBHTEPallas:
             material_array,
         )
 
-        shape = (32, 32, 40)
+        shape = (20, 18, 24)
         acoustic = material_array(
             500e3, tissues=("Water", "Skin", "Cortical", "Trabecular",
                             "Brain")
@@ -367,34 +410,35 @@ class TestBHTEPallas:
             acoustic, ct_mode=False, segmented_brain=False
         )
         idx = np.zeros(shape, np.uint8)
-        idx[:, :, 10:14] = 1
-        idx[:, :, 14:20] = 2
-        idx[:, :, 20:] = 4
-        p = np.zeros(shape, np.float32)
-        p[12:20, 12:20, 24:32] = 2e6
+        idx[:, :, 6:8] = 1
+        idx[:, :, 8:11] = 2
+        idx[:, :, 11:] = 4
+        p = np.zeros((2,) + shape, np.float32)
+        p[0, 6:14, 6:12, 13:20] = 8e6
+        p[1, 9:17, 8:14, 10:18] = 6e6
         return shape, mats, idx, p
 
-    def test_matches_xla_schedule(self):
-        """On/off schedule with a tail not divisible by K: T/dose/peak and
-        the sweep-cadence monitors must match the per-step XLA path."""
+    @pytest.mark.parametrize("t_start", [37.0, 42.5])
+    def test_matches_float64_reference(self, t_start):
         from babelbrain_tpu.ops.bhte import bhte_run
 
         shape, mats, idx, p = self._setup()
-        sched = [(0, 13, True), (0, 8, False), (0, 5, True)]
-        common = dict(
-            dt=0.01, duty_cycle=0.3, monitor_points=[(16, 16, 28)],
+        sched = [(0, 13, True), (-1, 8, False), (1, 9, True), (0, 5, False)]
+        t0 = np.full(shape, t_start, np.float32)
+        got = bhte_run(
+            p, idx, mats, 5e-4, sched, dt=0.01, duty_cycle=0.3,
+            monitor_points=[(10, 9, 16)], initial_temperature=t0,
             arterial_temperature=37.0,
         )
-        rx = bhte_run(p, idx, mats, 5e-4, sched, backend="xla", **common)
-        rp = bhte_run(p, idx, mats, 5e-4, sched, backend="pallas", **common)
-        np.testing.assert_allclose(rp.temperature, rx.temperature,
-                                   rtol=0, atol=1e-5)
-        np.testing.assert_allclose(rp.dose, rx.dose, rtol=1e-6)
-        np.testing.assert_allclose(rp.peak_temperature, rx.peak_temperature,
-                                   rtol=0, atol=1e-5)
-        # monitors: pallas samples once per sweep at the recorded steps
-        assert rp.monitor_steps is not None
-        np.testing.assert_allclose(
-            rp.monitor[0], rx.monitor[0][rp.monitor_steps],
-            rtol=0, atol=1e-5,
+        T, dose, peak = _bhte_reference(
+            p, idx, mats, 5e-4, 0.01, sched, 0.3, t0, 37.0
         )
+        assert peak.max() - t_start > 0.5  # the focus really heats
+        if t_start > 40:
+            assert (peak >= 43.0).any()  # both CEM43 branches engaged
+        np.testing.assert_allclose(got.temperature, T, rtol=0, atol=2e-4)
+        np.testing.assert_allclose(got.peak_temperature, peak, rtol=0,
+                                   atol=2e-4)
+        np.testing.assert_allclose(got.dose, dose, rtol=2e-4,
+                                   atol=1e-6 * dose.max())
+        assert got.monitor.shape == (1, 35)

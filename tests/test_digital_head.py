@@ -1,25 +1,11 @@
-"""Realistic digital-head validation corpus (VERDICT r4 task 8).
+"""Realistic digital-head validation corpus.
 
 The reference's regression tests drive real Zenodo datasets through the
 full pipeline (SURVEY.md section 4; doi 10.5281/zenodo.7894431). No
-network access exists here, so the closest offline substitute is a
-PROCEDURAL head phantom built from published cranial statistics and driven
-through the CT, ZTE, PETRA, and Density imaging paths end-to-end:
-
-  * outer-table/diploe/inner-table skull sandwich with angular thickness
-    variation in the published adult range (parietal/frontal mean ~6.3 mm,
-    sd ~1.5 mm; cortical tables ~1.5-2 mm — Lillie 2016 J Biomech,
-    Alexander 2019; same anatomy the Webb HU tables in
-    `materials/data/webb_tables.npz` were fitted on),
-  * CT values per compartment from the HU ranges those tables span
-    (cortical ~1200-1900 HU, diploe ~300-800 HU, soft tissue ~30-60 HU,
-    air sinus -1000 HU; cap 2100 HU as `BabelDatasetPreps.py:836`),
-  * a ZTE-like MR volume with the soft-bright/bone-dark contrast the
-    pseudo-CT mapping expects (`CTZTEProcessing.py:591-628`),
-  * a PETRA-like volume whose integer histogram carries the two peaks
-    (water bath + soft tissue) the petra2Density normalization keys on
-    (`CTZTEProcessing.py:556-577`),
-  * a Density volume via the same mass-density law CT mode uses.
+network access exists here, so the closest offline substitute is the
+procedural head phantom of ``pipeline.phantom`` (published cranial
+statistics), driven through the CT, ZTE, PETRA and Density imaging paths
+end to end.
 
 Cross-modality consistency (focal position and pressure within tiers) is
 the validation: the three imaging paths describe the SAME head, so the
@@ -34,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from babelbrain_tpu.pipeline.phantom import build_head
 from babelbrain_tpu.pipeline.profiles import (
     TRANSDUCER_REGISTRY,
     TransducerSpec,
@@ -49,91 +36,9 @@ N = 96
 VOX = 2.0
 
 
-def build_head():
-    """(labels, ct_hu, zte, petra, density, affine) at 2 mm isotropic."""
-    rng = np.random.default_rng(11)
-    aff = np.diag([VOX, VOX, VOX, 1.0])
-    aff[:3, 3] = -N
-    ii, jj, kk = np.mgrid[0:N, 0:N, 0:N]
-    ras = np.stack([ii, jj, kk], -1) * VOX - N
-    x, y, z = ras[..., 0], ras[..., 1], ras[..., 2]
-    # compact cranium (runtime-sized test head, radius ~60 mm): the
-    # validation targets are the SKULL statistics — thickness and HU
-    # distributions at published adult values — not the head diameter
-    r = np.sqrt((x / 0.97) ** 2 + (y / 0.92) ** 2 + z ** 2) + 1e-9
-    ux, uy, uz = x / r, y / r, z / r
-    # angular shape + published thickness statistics: mean 6.3 mm,
-    # sd ~1.5 mm across the vault, thicker occiput
-    r_skull_out = 60.0 * (1.0 + 0.05 * ux - 0.03 * uy * uz)
-    thick = np.clip(
-        6.3 + 1.5 * (0.8 * uz - 0.5 * ux * uy + 0.4 * uy), 3.5, 9.5
-    )
-    table = np.clip(1.8 + 0.3 * uz, 1.2, 2.4)  # cortical tables ~1.5-2 mm
-    d_out = r - r_skull_out
-    skin = (d_out > 0) & (d_out <= 5.0)
-    outer_table = (d_out <= 0) & (d_out > -table)
-    diploe = (d_out <= -table) & (d_out > -(thick - table))
-    inner_table = (d_out <= -(thick - table)) & (d_out > -thick)
-    brain = d_out <= -thick
-    sinus = (
-        np.sqrt(x ** 2 + (y + 40) ** 2 + (z - 25) ** 2) < 7
-    ) & (brain | diploe | inner_table)
-
-    # charm-style label ids as the pipeline consumes them (same
-    # convention as tests/test_runner.py's phantom): 5 skin, 7 bone,
-    # 4 CSF rim, 2 GM, 1 WM. The cortical/trabecular split comes from
-    # the CT HU inside the bone mask (CT mode quantizes per-HU
-    # materials), not from the label volume.
-    labels = np.zeros((N, N, N), np.int32)
-    labels[skin] = 5
-    labels[outer_table | inner_table | diploe] = 7
-    csf = brain & (d_out > -(thick + 3.0))
-    labels[brain] = 2
-    labels[csf] = 4
-    labels[d_out <= -(thick + 18.0)] = 1
-    labels[sinus] = 0  # air cavity
-
-    # water-bath exterior (~20 HU): with a -1000 HU exterior the air
-    # extraction would turn the whole coupling path into a reflector
-    # mask and no energy would reach the skull; the intracranial sinus
-    # stays the air cavity under test
-    ct = np.full((N, N, N), 20.0)
-    ct[skin] = 45.0 + rng.normal(0, 8, skin.sum())
-    ct[brain] = 35.0 + rng.normal(0, 6, brain.sum())
-    ct[outer_table] = 1550.0 + rng.normal(0, 180, outer_table.sum())
-    ct[inner_table] = 1450.0 + rng.normal(0, 180, inner_table.sum())
-    ct[diploe] = 550.0 + rng.normal(0, 140, diploe.sum())
-    ct[sinus] = -1000.0
-    ct = np.clip(ct, -1000.0, 2100.0)
-
-    # ZTE-like MR: normalized soft-bright / bone-dark / air-dark
-    zte = np.full((N, N, N), 600.0)  # water-bath signal, not air-dark
-    zte[labels > 0] = 1000.0 + rng.normal(0, 25, int((labels > 0).sum()))
-    bone = outer_table | inner_table | diploe
-    zte[bone] = 340.0 + rng.normal(0, 40, int(bone.sum()))
-    zte[sinus] = 25.0
-
-    # PETRA-like MR: the petra2Density normalization integer-bins the
-    # FULL image histogram and divides by the highest-intensity of the
-    # two tallest peaks >=50 units apart (`CTZTEProcessing.py:556-577`)
-    # — here the water bath (~600, tallest) and soft tissue (~1000, the
-    # normalizer), with bone at norm ~0.35 so the linear law
-    # pCT = -2080*norm + 2133.2 lands it near the CT cortical values
-    petra = 600.0 + rng.normal(0, 4, (N, N, N))
-    petra[labels > 0] = 1000.0 + rng.normal(0, 25, int((labels > 0).sum()))
-    petra[bone] = 350.0 + rng.normal(0, 45, int(bone.sum()))
-    petra[sinus] = 25.0
-
-    # density volume: soft ~1000, bone via a linear HU law
-    dens = np.full((N, N, N), 1000.0)
-    dens[bone] = 1000.0 + 0.6 * np.clip(ct[bone], 0, None)
-    dens[sinus] = 1.2
-    return labels, ct, zte, petra, dens, aff
-
-
 @pytest.fixture(scope="module")
 def head():
-    return build_head()
+    return build_head(n=N, voxel_mm=VOX, skull_radius_mm=60.0)
 
 
 @pytest.fixture(scope="module")
@@ -161,7 +66,44 @@ def _run_mode(head, tx, tmpdir, ct_type, vol):
 def _focal_metrics(res):
     import babelbrain_tpu.pipeline.io as pio
 
-    d = pio.load_dict_h5(res["files"]["acoustic"])
+    return focal_metrics(pio.load_dict_h5(res["files"]["acoustic"]))
+
+
+def run_ct_case(head, tx, outdir, write_h5=True):
+    """The CT-mode case the golden pins (HeadTest bowl, 84x84x192 grid)."""
+    labels, ct, zte, petra, dens, aff = head
+    cfg = CaseConfig(
+        tx_system=tx, frequency=500e3, ppw=6.0, ct_type="CT",
+        output_dir=str(outdir), prefix="dh_ct",
+    )
+    return run_case(
+        cfg, labels, aff,
+        target_ras=[0.0, 0.0, 20.0], direction_ras=[0, 0, -1],
+        ct_data=ct, ct_affine=aff, mask_shape=(84, 84, 192),
+        write_h5=write_h5,
+    )
+
+
+def golden_crop(pa):
+    """Central field crop stored in the golden."""
+    c = tuple(s // 2 for s in pa.shape)
+    return pa[c[0] - 16:c[0] + 16, c[1] - 16:c[1] + 16,
+              c[2] - 24:c[2] + 24].astype(np.float32)
+
+
+def golden_errors(data):
+    """(peak rel. error, focus shift mm, crop rel-L2) vs the golden for a
+    DataForSim dict of the CT case."""
+    pa, pos, pk, _ = focal_metrics(data)
+    g = np.load(GOLDEN)
+    gcrop = np.asarray(g["crop"])
+    l2 = np.linalg.norm(golden_crop(pa) - gcrop) / (
+        np.linalg.norm(gcrop) + 1e-9)
+    return (abs(pk - float(g["peak"])) / float(g["peak"]),
+            float(np.linalg.norm(pos - g["pos"])), float(l2))
+
+
+def focal_metrics(d):
     pa = np.asarray(d["p_amp"])
     pk = np.unravel_index(np.argmax(pa), pa.shape)
     xv = np.asarray(d["x_vec"])
@@ -220,9 +162,7 @@ class TestDigitalHead:
         golden (the reference's tolerance-tier scheme, `pytest.ini:44-61`)."""
         pa, pos, pk, vol6 = _focal_metrics(runs["CT"])
         # compact golden: central field crop + metrics
-        c = tuple(s // 2 for s in pa.shape)
-        crop = pa[c[0] - 16:c[0] + 16, c[1] - 16:c[1] + 16,
-                  c[2] - 24:c[2] + 24].astype(np.float32)
+        crop = golden_crop(pa)
         if GENERATE:
             GOLDEN.parent.mkdir(exist_ok=True)
             np.savez_compressed(

@@ -177,9 +177,7 @@ class TestSlabTransmission:
                 idx = np.zeros(shape, np.uint8)
                 if L_cells:
                     idx[:, :, z0 : z0 + L_cells] = 1
-                out = run_fdtd(
-                    idx, mats, grid, source_amp=amp, backend="xla"
-                )
+                out = run_fdtd(idx, mats, grid, source_amp=amp)
                 cache[L_cells] = float(
                     np.median(out["p_amp"][20:28, 20:28, z0 + 9 : z0 + 20])
                 )
@@ -458,10 +456,6 @@ class TestSelMapsAndSensors:
         idx = np.zeros(shape, np.uint8)
         with pytest.raises(ValueError, match="unknown sel_maps"):
             run_fdtd(idx, mats, grid, sel_maps=("Bogus_rms",))
-        # velocity/stress maps are XLA-only; backend='pallas' must refuse
-        # rather than silently fall back
-        with pytest.raises(ValueError, match="XLA backend"):
-            run_fdtd(idx, mats, grid, backend="pallas", sel_maps=("Vx_rms",))
 
 
 class TestPointSourceSphericalSpreading:
@@ -484,7 +478,7 @@ class TestPointSourceSphericalSpreading:
         )
         mats = np.array([[1000.0, C, 0.0, alpha, 0.0]])
         out = run_fdtd(np.zeros(shape, np.uint8), mats, grid,
-                       point_amp=50e3, backend="xla")
+                       point_amp=50e3)
         amp = out["p_amp"]
         # radial samples along +z, away from the source's near field and
         # clear of the PML (r in [6, 18] cells)
@@ -524,7 +518,7 @@ class TestRawCapture:
             t_start=t0, t_end=grid.n_steps, sensor_mask=mask,
         )
         mon = run_fdtd(
-            idx, mats, grid, source_amp=amp, backend="xla",
+            idx, mats, grid, source_amp=amp,
             monitor_ijk=np.argwhere(mask), sensor_subsampling=1,
         )
         # same steps, same values (both record p after each window step)

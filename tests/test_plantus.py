@@ -23,7 +23,7 @@ class TestONeil:
         assert 5e-3 < flhm < 40e-3
 
     def test_oneil_matches_rayleigh_on_axis(self):
-        """The MXU Rayleigh propagator must reproduce the O'Neil analytic
+        """The blocked-matmul Rayleigh propagator must reproduce the O'Neil analytic
         on-axis magnitude of a spherical shell (normalized)."""
         from babelbrain_tpu.ops.rayleigh import rayleigh_field
         from babelbrain_tpu.tx import make_focused_bowl

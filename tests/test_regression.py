@@ -93,14 +93,24 @@ def _run_config(name):
     return out["p_amp"].astype(np.float32)
 
 
-@pytest.mark.parametrize(
-    "name,tol_l2,tol_linf",
-    [
-        ("water_plane", 0.01, 0.01),
-        ("skull_slab_visco", 0.01, 0.02),
-        ("ct_slab_fluid", 0.01, 0.02),
-    ],
-)
+# (name, rel-L2 bound, peak-relative L-inf bound)
+GOLDENS = [
+    ("water_plane", 0.01, 0.01),
+    ("skull_slab_visco", 0.01, 0.02),
+    ("ct_slab_fluid", 0.01, 0.02),
+]
+
+
+def golden_errors(name, field):
+    """(rel-L2, peak-relative L-inf) of ``field`` against the golden."""
+    gold = np.load(GOLDEN_DIR / f"{name}.npz")["p_amp_kpa"].astype(
+        np.float32) * 1e3
+    l2 = np.linalg.norm(field - gold) / np.linalg.norm(gold)
+    linf = np.abs(field - gold).max() / gold.max()
+    return float(l2), float(linf)
+
+
+@pytest.mark.parametrize("name,tol_l2,tol_linf", GOLDENS)
 @pytest.mark.tol_1
 def test_golden_field(name, tol_l2, tol_linf):
     path = GOLDEN_DIR / f"{name}.npz"
@@ -109,8 +119,6 @@ def test_golden_field(name, tol_l2, tol_linf):
         GOLDEN_DIR.mkdir(exist_ok=True)
         np.savez_compressed(path, p_amp_kpa=(field / 1e3).astype(np.float16))
         pytest.skip(f"golden generated: {path.name}")
-    gold = np.load(path)["p_amp_kpa"].astype(np.float32) * 1e3
-    l2 = np.linalg.norm(field - gold) / np.linalg.norm(gold)
-    linf = np.abs(field - gold).max() / gold.max()
+    l2, linf = golden_errors(name, field)
     assert l2 < tol_l2, f"{name}: L2 {l2:.4f}"
     assert linf < tol_linf, f"{name}: Linf {linf:.4f}"

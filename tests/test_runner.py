@@ -664,9 +664,8 @@ def test_dome_ct_mode_case(phantom, tmp_path):
     """DomeTx in CT mode through run_case: shear is disabled in CT mode
     (`BabelIntegrationBASE.py:1343-1351`), so the dome drives a FLUID
     medium volumetrically — the reference's heaviest documented workload
-    class (670 kHz DomeTx + CT, `README.md:80`). On TPU this routes
-    through the zero-shear fused-visco promotion; the contract (DataForSim
-    with SDR, dome losses in thermal) must hold either way."""
+    class (670 kHz DomeTx + CT, `README.md:80`). The contract (DataForSim
+    with SDR, dome losses in thermal) must hold."""
     labels, aff = phantom
     F = 16e-3
     TRANSDUCER_REGISTRY["TestDomeCT"] = TransducerSpec(
@@ -740,8 +739,8 @@ def test_shape_bucket_shares_executable():
     cases collapse to one canonical grid signature and the second
     ``run_fdtd`` call reuses the first call's compiled executable (the
     reference's case loop is compile-free,
-    `BabelIntegrationBASE.py:884-1037`; on a remote-compile TPU runtime
-    every distinct shape costs minutes)."""
+    `BabelIntegrationBASE.py:884-1037`; every distinct shape costs a
+    fresh FDTD compilation)."""
     import numpy as np
 
     from babelbrain_tpu.ops.fdtd import (
@@ -779,10 +778,9 @@ def test_shape_bucket_shares_executable():
     amp = np.zeros((16, 16), np.float32)
     amp[4:-4, 4:-4] = 60e3
     fdtd_executable_stats(reset=True)
-    run_fdtd(np.zeros((16, 16, 32), np.uint8), mats, grid, source_amp=amp,
-             backend="xla")
+    run_fdtd(np.zeros((16, 16, 32), np.uint8), mats, grid, source_amp=amp)
     run_fdtd(np.zeros((16, 16, 32), np.uint8), mats, grid,
-             source_amp=amp * 0.5, backend="xla")
+             source_amp=amp * 0.5)
     stats = fdtd_executable_stats()
     assert stats["builds"] == 1
     assert stats["hits"] == 1

@@ -96,8 +96,7 @@ def _run_normal(d_cells, mats, ncyc=16):
     amp[:12] = 0
     amp[-12:] = 0
     o = run_fdtd(idx, mats, grid, source_amp=amp,
-                 source_phase=np.zeros(SHAPE[:2], np.float32),
-                 backend="xla")
+                 source_phase=np.zeros(SHAPE[:2], np.float32))
     return o["p_amp"]
 
 
@@ -121,8 +120,7 @@ def _run_tilted(theta_deg, d_cells, mats, ncyc=30):
     amp[:12] = 0
     amp[-12:] = 0
     o = run_fdtd(idx, mats, grid, source_amp=amp,
-                 source_phase=np.zeros(SHAPE[:2], np.float32),
-                 backend="xla")
+                 source_phase=np.zeros(SHAPE[:2], np.float32))
     return o["p_amp"]
 
 
